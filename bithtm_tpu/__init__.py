@@ -1,10 +1,11 @@
-"""bithtm_tpu: a TPU-native Hierarchical Temporal Memory framework.
+"""bithtm_tpu: a batched Hierarchical Temporal Memory framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-cokwa/bitHTM (SpatialPooler + TemporalMemory + HierarchicalTemporalMemory,
+A from-scratch JAX/XLA rebuild of the capabilities of cokwa/bitHTM
+(SpatialPooler + TemporalMemory + HierarchicalTemporalMemory,
 `bithtm/__init__.py:1-6` in the reference): functional state pytrees,
-static padded synapse pools, MXU overlap matmuls, vmap-batched streams
-under lax.scan, and mesh sharding for multi-chip scale.
+static padded synapse pools, bit-packed overlaps, vmap-batched streams
+under lax.scan, and mesh sharding across devices. It runs on NVIDIA
+GPUs (and on the CPU for tests).
 
 Two API surfaces:
   * functional: `htm_init` / `htm_step` / `htm_scan` (+ sp_/tm_ variants)

@@ -1,4 +1,4 @@
-"""Static configuration for the TPU-native HTM framework.
+"""Static configuration for the HTM framework.
 
 The reference (cokwa/bitHTM) scatters hyperparameters across constructor
 defaults (`projections.py:7-10,205-223`, `regularizations.py:5-7`,
@@ -8,7 +8,7 @@ which is what XLA's compilation model requires.
 
 Capacity fields (``segments_per_column``, ``synapse_capacity``) have no
 reference counterpart: the reference grows its tables dynamically
-(`utils.py:79-135`). The TPU build pre-allocates a **per-column** padded
+(`utils.py:79-135`). This build pre-allocates a **per-column** padded
 segment pool (see `bithtm_tpu/models/temporal_memory.py`): slot
 ``(c, g)`` can only host segments of column ``c``'s cells, which turns
 every per-cell reduction into a scatter-free one-hot over ``cell_dim``
@@ -48,9 +48,9 @@ class SPConfig:
     # "float32" keeps the reference's real-valued permanences (the
     # parity-test contract). "int16" stores permanences as integer
     # multiples of `permanence_quantum`: updates become exact integer
-    # arithmetic at half the HBM traffic (thresholding at 0 and the
+    # arithmetic at half the memory traffic (thresholding at 0 and the
     # resulting connectivity/behavior are equivalent; only the Gaussian
-    # init is quantized). See docs/PERFORMANCE.md.
+    # init is quantized). See docs/QUALITY.md for its convergence.
     permanence_dtype: str = "float32"
     permanence_quantum: float = 0.005
 
@@ -105,7 +105,7 @@ class TMConfig:
     cell_dim: int
     active_columns: int
 
-    # Static pool capacities (TPU-native; no reference counterpart).
+    # Static pool capacities (no reference counterpart).
     # The reference workload (100 patterns, 2% sparsity) stabilises at
     # ~2.5 segments/column; 8 slots give 3x headroom with zero drops
     # (drops are counted in metrics if a workload ever exceeds them).
@@ -113,15 +113,12 @@ class TMConfig:
     synapse_capacity: int = 48      # K: synapse slots per segment
     winner_capacity: int = 0        # Wc: growth-candidate list width
                                     # (0 = auto: min(A*D, max(128,
-                                    # roundup(2A, 128))) — a lane axis)
+                                    # roundup(2A, 128))))
     growth_capacity: int = 0        # L: segments growing per step
                                     # (0 = auto: min(A*G, max(64,
-                                    # roundup(2A, 8))) — a sublane axis)
+                                    # roundup(2A, 8))))
     # NOTE: no punish capacity knob — punishment is unbounded, fused
-    # into the full-table kernel. A bounded P-row punishment scatter
-    # was built and measured in round 4 and rejected (the P=48-row
-    # scatter alone cost more than the fusion saved; see
-    # docs/PERFORMANCE.md "Tried and rejected").
+    # into the full-table pass.
 
     # Distal permanence dynamics (projections.py:205-219).
     permanence_initial: float = 0.21
@@ -169,7 +166,7 @@ class TMConfig:
             raise ValueError("cell_dim and segments_per_column must be "
                              "positive")
         if self.segments_per_column > 32:
-            # the punished-segment mask rides through the table kernel
+            # the punished-segment mask rides through the table pass
             # as one i32 bit per slot per column
             raise ValueError(
                 f"segments_per_column={self.segments_per_column} "
@@ -217,15 +214,15 @@ class TMConfig:
 
     @property
     def _auto_compaction_width(self) -> int:
-        """Auto heuristic for the winner-candidate (lane-axis) list:
-        2x the active-column count (winners are ~1 per active column in
-        steady state; 2x absorbs multi-predicted columns), rounded up
-        to the 128-lane width, never below 128. Scales with
+        """Auto heuristic for the winner-candidate list: 2x the
+        active-column count (winners are ~1 per active column in steady
+        state; 2x absorbs multi-predicted columns), rounded up to a
+        multiple of 128, never below 128. Scales with
         `active_columns` so large configs (e.g. 16K columns, A=328) are
-        not silently truncated to the lowest 128 ids — the bias VERDICT
-        r1 #2 flagged. Overflow is still dropped + counted
+        not silently truncated to the lowest 128 ids (a bias toward
+        low cell ids). Overflow is still dropped + counted
         (`tm_dropped_winner_candidates`). The growth list L uses its
-        own sublane-granular formula (`resolved_growth_capacity`)."""
+        own formula (`resolved_growth_capacity`)."""
         return max(128, _round_up(2 * self.active_columns, 128))
 
     @property
@@ -245,20 +242,13 @@ class TMConfig:
         candidate-selection math runs on this compact list instead of
         all A*G active-column slots.
 
-        Unlike the winner list (whose width Wc is a LANE axis and wants
-        the full 128), L is a sublane axis: the auto floor is 2x the
-        active-column count rounded to the 8-sublane granularity
-        (steady-state learning segments are ~1 per active column; 2x
-        absorbs multi-matching winners — overflow is dropped + counted
-        in `tm_dropped_growth_segments`). Measured zero drops on the
-        2000-step reference-workload soak at this width.
-
-        Large-A configs get 2.5x instead: the 16K x 64 growth-cap soak
-        peaked at 655 of the 2x floor's 656 slots — zero spare — and at
-        that scale the extra list width is noise against the step (the
-        L-wide selection sort is ~2 of ~40 ms; +25% width ~ +1% step).
-        Small-A configs keep 2x, where the soaked margin is real and
-        the sort is a visible slice of a ~11 ms step. L is per-step
+        The auto floor is 2x the active-column count rounded up to a
+        multiple of 8 (steady-state learning segments are ~1 per active
+        column; 2x absorbs multi-matching winners — overflow is dropped +
+        counted in `tm_dropped_growth_segments`), with zero drops on the
+        2000-step reference-workload soak at this width. Large-A configs
+        (A >= 128) get 2.5x instead: the 16K x 64 growth-cap soak
+        peaked at 655 of the 2x floor's 656 slots. L is per-step
         scratch, not state: a config with a wider (or explicit)
         `growth_capacity` resumes from the SAME state pytree, so a
         counted drop has a zero-migration mitigation — re-jit with a
@@ -294,7 +284,7 @@ def make_tm_config(
     active_columns: int,
     **overrides,
 ) -> TMConfig:
-    """Build a TMConfig with TPU-friendly derived capacities.
+    """Build a TMConfig with derived capacities.
 
     Capacity heuristics: at the reference's default 2048x32 workload the
     pool stabilises around ~2.5 segments per column, so the default 8

@@ -222,7 +222,7 @@ def anomaly_likelihood_update(
 
 # ---- windowed z-score residual stage (pre-encoder / side detector) -----
 # The likelihood post-processor fails in two measured ways
-# (docs/PERFORMANCE.md "Anomaly benchmark"): chronic input noise widens
+# (docs/QUALITY.md "Anomaly benchmark"): chronic input noise widens
 # the running score Gaussian until a one-step spike can't reach the
 # tail, and continuous drift shifts the score distribution the same
 # way. The standard NAB-era mitigation is a seasonal-residual windowed

@@ -7,7 +7,7 @@ a pure-Python TM (`example.py:7-12`). The jit-traceable hooks of
 TM step through `jax.experimental.io_callback`: the host implementation
 (NumPy, a C extension, anything) keeps its own mutable state and runs
 at its natural pace while the SP, metrics, and driver loop stay on the
-compiled TPU path.
+compiled device path.
 
     def my_tm(active_columns, learning):      # plain NumPy, stateful
         ...

@@ -5,13 +5,10 @@ overlaps -> boosting -> global inhibition -> (if learning) Hebbian
 proximal update; the boosting duty-cycle EMA updates even when
 learning=False (`networks.py:33`).
 
-TPU notes: the overlap is a popcount over the bit-packed connection
-matrix (`ops/overlap.py`). The Hebbian update touches only the k active
-rows, but a row scatter on the (C, I) tables lowers to layout-flipping
-copies of the whole table under vmap; a masked full-table elementwise
-update is cheaper (one fused read+write pass, no relayout). The packed
-connected matrix is re-derived from the permanences inside the same
-pass.
+Notes: the overlap is a popcount over the bit-packed connection matrix
+(`ops/overlap.py`). The Hebbian update gathers the k active rows,
+updates them, and scatters them back with their re-packed connected
+words.
 """
 
 from __future__ import annotations
@@ -83,10 +80,7 @@ def sp_step(cfg: SPConfig, state: SPState, input_bits: jnp.ndarray,
         # delta = input * (inc + dec) - dec. Sparse row form: gather the
         # A active rows, update them, scatter rows + their re-packed
         # connected words back. Touches A/C of the table instead of a
-        # masked full-table read+write pass (~3.5 ms/step at B=256 —
-        # the layout-flip that made row scatters lose in round 1 came
-        # from the non-tile-aligned I=1000 minor dim; the lane-padded
-        # table scatters natively, like the TM write-back).
+        # masked full-table read+write pass.
         # Padding lanes get delta 0 so they stay pinned at the rail.
         I = cfg.input_dim
         I_pad = permanence.shape[-1]

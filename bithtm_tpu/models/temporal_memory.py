@@ -14,19 +14,15 @@ pool, in the order the reference executes them:
   4. activation (predicted | bursting)             (`networks.py:115-119`)
   5. distal forward pass -> next prediction        (`networks.py:121-127`)
 
-TPU-native design (why this looks nothing like the reference):
-  * No arbitrary-index gather/scatter anywhere — those run on the TPU
-    scalar core at ~10 cycles/element. The active/winner cell sets ride
-    as exactly-A compact column lists + cell bitmasks, so "is this
-    synapse's target active?" is an A-wide vectorized compare
-    (`ops/active_set.synapse_activation`), and all per-cell segment
-    reductions are one-hot over the D axis.
-  * Full-table arrays stay **flat (C, G*K)** — the 3D view's 48-wide
-    minor dim would tile-pad to 128 lanes, costing a 2.7x relayout copy
-    per materialization. Per-segment reductions/broadcasts on the full
-    table go through a constant block matrix on the MXU
-    (`ops/active_set.seg_reduce_counts`); per-segment *broadcasts* ride
-    as packed per-column bitmask words expanded in the table kernel.
+Design (why this looks nothing like the reference):
+  * The active/winner cell sets ride as exactly-A compact column lists
+    + cell bitmasks, so "is this synapse's target active?" is an A-wide
+    vectorized compare (`ops/active_set.synapse_activation_xla`), and
+    all per-cell segment reductions are one-hot over the D axis.
+  * Full-table arrays stay **flat (C, G*K)**. Per-segment counts on the
+    full table go through a constant block matrix as one exact dot
+    (`ops/active_set.seg_counts_packed`); per-segment *broadcasts* ride
+    as packed per-column bitmask words expanded in the table pass.
   * All learning mutation is compacted to the A active-column rows
     (winner cells and learning segments only exist there), where 3D
     shapes are tiny; the only full-table learning op is the punishment
@@ -63,9 +59,9 @@ from ..ops.active_set import (
     seg_counts_packed_rows,
     synapse_activation_conn,
     synapse_activation_frozen,
-    take_small_table,
-    table_update,
+    table_update_xla,
     take_percell,
+    take_small_table,
     unpack_bits,
 )
 from ..state import TMState
@@ -125,9 +121,9 @@ def _winner_selection(cfg: TMConfig, state: TMState, key: jax.Array,
     # from the cached forward activity (the table is unchanged since
     # the previous step's forward pass, so these equal the values that
     # step computed — `utils.checks` audits exactly this invariant).
-    # Re-deriving from the (A, G, K) row gather beats carrying (C, G)
-    # arrays whose minor axis tile-pads 16-32x; the packed-count decode
-    # is one bf16 reduce (shared with `_learn` by jit CSE).
+    # Re-deriving from the (A, G, K) row gather replaces carrying
+    # (C, G) arrays; the packed-count decode is one reduce (shared with
+    # `_learn` by jit CSE).
     pot_rows, _ = seg_counts_packed_rows(
         state.synapse_act[active_cols].reshape(A, G, K), K
     )                                                         # (A, G)
@@ -240,15 +236,13 @@ def _select_and_fill(pri, n_grow, cand_cell, free, samp, method,
         ``pri`` is an int32 key with the candidate's **list index** in
         the low ``idx_bits`` bits and i.i.d. random bits in bits
         [idx_bits, 29] (invalid = 0x7FFFFFFF, unreachable: valid keys
-        keep bits 30-31 clear); the payload-free s32 sort measured
-        1.9x the f32+s32 pair sort at (64, 656, 768) on v5e, and a
-        fused compare-select-reduce maps the chosen indices back to
-        cells from the shared candidate list (a gather would run on
-        the scalar core, measured 8x slower than the fused map).
+        keep bits 30-31 clear); the payload-free s32 sort moves half
+        the bytes of the f32+s32 pair sort, and one gather maps the
+        chosen indices back to cells from the shared candidate list
+        (`take_small_table`).
       * ``sortfill`` — one `lax.sort` of (priority f32, candidate s32)
-        pairs; the r-th smallest priority fills the r-th free slot.
-        ~2x faster than pairwise on TPU at (L, Wc) = (128, 128): no
-        O(Wc^2) rank tensor, no (K, Wc) match tensor.
+        pairs; the r-th smallest priority fills the r-th free slot
+        (no O(Wc^2) rank tensor, no (K, Wc) match tensor).
       * ``pairwise`` — O(Wc^2) rank-count compares mapping the r-th
         chosen candidate in **ascending candidate order** to the r-th
         free slot (the reference's `replace_free` placement,
@@ -271,12 +265,9 @@ def _select_and_fill(pri, n_grow, cand_cell, free, samp, method,
         # lists use an exact split selection instead of one full-width
         # sort: sort 192-wide blocks, keep each block's kk smallest,
         # sort the n*kk survivors (any global top-kk key is within the
-        # top kk of its block). Measured on v5e at (64, 656, 768) s32:
-        # full sort 5.95 ms, split 4x192 + 128-merge 1.9 ms. The block
-        # width is empirical — the TPU sort emitter is violently width-
-        # sensitive (384-wide and 96-wide blocks are 25-75x SLOWER than
-        # 192 at this shape) — and the split only dispatches where
-        # measured safe: wide lists, small kk, merge width <= 256.
+        # top kk of its block). The split dispatches only for wide
+        # lists, small kk and a merge width <= 256; the 192 block width
+        # is a tuning constant that has not been re-swept on the GPU.
         _SPLIT_W = 192
         n_blk = -(-Wc // _SPLIT_W)
         if Wc >= 2 * _SPLIT_W and kk <= _SPLIT_W // 2 \
@@ -300,12 +291,10 @@ def _select_and_fill(pri, n_grow, cand_cell, free, samp, method,
             chosen_cell = (sorted_key[:, :kk] & low).astype(jnp.int32)
         else:
             chosen_idx = (sorted_key[:, :kk] & low).astype(jnp.int32)
-            # index -> cell against the shared candidate list
-            # (`take_small_table`: chunked-dynamic-gather kernel on
-            # TPU, fused compare-select-reduce elsewhere); sentinel
-            # rows decode to an out-of-range or arbitrary index, but
-            # land only in slots with free_rank >= n_chosen, which
-            # wrote_l never writes.
+            # index -> cell against the shared candidate list (one
+            # gather); sentinel rows decode to an out-of-range or
+            # arbitrary index, but land only in slots with
+            # free_rank >= n_chosen, which wrote_l never writes.
             chosen_cell = take_small_table(cand_cell, chosen_idx)
         r = jnp.arange(kk, dtype=jnp.int32)
         sel = free_rank[:, None, :] == r[:, None]                # (L, kk, K)
@@ -319,8 +308,7 @@ def _select_and_fill(pri, n_grow, cand_cell, free, samp, method,
             (pri, jnp.broadcast_to(cand_cell, pri.shape)),
             dimension=-1, num_keys=1, is_stable=False,
         )                                                        # (L, Wc)
-        # is_stable=False drops the iota tie-break operand (~30% of the
-        # sort, measured): priorities are i.i.d. uniform floats, so ties
+        # is_stable=False drops the iota tie-break operand: priorities are i.i.d. uniform floats, so ties
         # among *selected* (finite) entries are measure-zero, and the
         # +inf-masked invalid entries sort behind every finite priority
         # regardless of their relative order.
@@ -385,8 +373,8 @@ def _grow(cfg: TMConfig, key, syn_rows, perm_rows, learn_rows,
     n_winners_eff = jnp.minimum(n_winners, Wc)
 
     # --- compact the growing segments to L rows (ascending slot id) ---
-    # (compact_first_k's rank/one-hot form: `jnp.nonzero(size=L)` lowers
-    # to a kCustom sort-style fusion measured ~4x slower at (B, A*G))
+    # (compact_first_k's rank/one-hot form, in place of
+    # `jnp.nonzero(size=L)`)
     learn_flat = learn_rows.reshape(A * G)
     lidx_c, lvalid = compact_first_k(
         learn_flat, jnp.arange(A * G, dtype=jnp.int32), L
@@ -415,9 +403,8 @@ def _grow(cfg: TMConfig, key, syn_rows, perm_rows, learn_rows,
     #   * larger cell spaces (16K x 64 = 2^20 cells): embed the
     #     candidate **list index** (<= 10 bits for Wc <= 1024), which
     #     leaves >= 30 - idx_bits >= 20 random bits, and decode
-    #     index -> cell with a fused compare-select-reduce
-    #     (``sortfill_packed_idx``). This replaced the f32+s32 pair
-    #     sort, which was 21% of the whole 16K step (measured 1.9x).
+    #     index -> cell with one gather (``sortfill_packed_idx``),
+    #     sorting half the bytes of an f32+s32 pair sort.
     # Either way valid keys never tie exactly (distinct ids/indices),
     # and random-bit collisions (falling back to order-by-low-bits
     # among the collided pair) are a <= 0.1%-of-selected event — the
@@ -499,8 +486,7 @@ def _grow(cfg: TMConfig, key, syn_rows, perm_rows, learn_rows,
 
 
 def _learn(cfg: TMConfig, state: TMState, key: jax.Array,
-           active_cols, col_active, pred_rows, winner_rows, cell_max_j,
-           seg_j):
+           active_cols, pred_rows, winner_rows, cell_max_j, seg_j):
     """Step 3 minus punishment: row-space graph mutation
     (`PredictiveProjection.update`, `projections.py:257-293`). Learns
     against the *previous* step's activation/winners; a no-op on step 0
@@ -508,7 +494,7 @@ def _learn(cfg: TMConfig, state: TMState, key: jax.Array,
 
     Everything happens on the gathered (A, ...) active-column rows,
     written back into the flat tables at the end; the full-table
-    punishment pass is fused into the forward table kernel by the
+    punishment pass is fused into the forward table pass by the
     caller (punished segments live only in non-active columns, so the
     two mutations are disjoint).
     """
@@ -522,8 +508,8 @@ def _learn(cfg: TMConfig, state: TMState, key: jax.Array,
 
     # Synapse activity wrt the previous step's active cells: cached by
     # the previous forward pass (the table is unchanged since), so the
-    # learning phase needs no activation pass of its own. bf16 0/1 (the
-    # table kernel's MXU-operand output dtype); nonzero == active.
+    # learning phase needs no activation pass of its own. Packed
+    # (`ops.active_set.act_scale`); nonzero == active.
     act_prev = state.synapse_act                                # (C, J)
 
     # --- learning-segment set in active-column row space
@@ -531,10 +517,10 @@ def _learn(cfg: TMConfig, state: TMState, key: jax.Array,
     segcell_rows = state.seg_cell[active_cols]
     syn_rows = syn_flat[active_cols].reshape(-1, G, K)          # (A, G, K)
     perm_rows = perm_flat[active_cols].reshape(-1, G, K)
-    # Punishment death is implicit (the table kernel stops rewriting the
+    # Punishment death is implicit (the table pass does not rewrite the
     # syn table; dead = perm < 0). Clean the stale slots here, in row
-    # space — this reproduces bit-exactly the (-1, -1.0) the kernel used
-    # to write, for every row learning touches, and the write-back
+    # space — this writes the (-1, -1.0) of an explicit death, for
+    # every row learning touches, and the write-back
     # persists it. Free slots are already (-1, -1.0), so this is
     # idempotent on them.
     stale = perm_rows < 0.0
@@ -545,7 +531,7 @@ def _learn(cfg: TMConfig, state: TMState, key: jax.Array,
     # matching / active flags re-derived at the rows from the cached
     # packed activity (bit-equal to what the previous step's forward
     # pass computed: the conn bit IS that pass's perm >= threshold,
-    # and active-column rows are untouched by the kernel's punishment,
+    # and active-column rows are untouched by the table pass's punishment,
     # which lives in non-active columns; jit CSE shares the row gathers
     # and the count decode with `_winner_selection`)
     pot_rows, conn_rows = seg_counts_packed_rows(act_prev_raw, K)
@@ -596,23 +582,11 @@ def _learn(cfg: TMConfig, state: TMState, key: jax.Array,
     )
 
     # --- write the active-column rows back into the full tables (the
-    # punishment pass runs after this, touching only non-active columns)
+    # punishment pass runs after this, touching only non-active columns;
+    # active_cols are distinct, so each row scatter is exact)
     syn_full = syn_flat.at[active_cols].set(syn_rows.reshape(-1, J))
     perm_full = perm_flat.at[active_cols].set(perm_rows.reshape(-1, J))
-    # seg_cell write-back as one-hot dot + masked select instead of a
-    # row scatter: the (C, G) table's narrow G axis makes XLA's scatter
-    # write single lanes across sublane tiles (~0.42 ms/step at B=256
-    # for 32 KB of logical data); the f32 dot (exact for cell ids
-    # < 2^24) plus a full-table select moves the same data in ~0.05 ms.
-    onehot = (
-        active_cols[:, None] == jnp.arange(C, dtype=jnp.int32)
-    ).astype(jnp.float32)                                       # (A, C)
-    dense_rows = jax.lax.dot_general(
-        onehot, segcell_rows.astype(jnp.float32),
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ).astype(jnp.int32)                                         # (C, G)
-    seg_cell = jnp.where(col_active[:, None], dense_rows, state.seg_cell)
+    seg_cell = state.seg_cell.at[active_cols].set(segcell_rows)
 
     learning_full = (
         jnp.zeros((C, G), jnp.bool_).at[active_cols].set(learn_rows)
@@ -649,8 +623,8 @@ def tm_segment_observables(cfg: TMConfig, state: TMState) -> dict:
     The reference returns the distal state's `segment_potential` /
     `matching_segment` / `matching_segment_activation` to callers
     (`projections.py:195-203`); the rebuild's step outputs carry
-    cell-level masks only (the (C, G) per-segment arrays tile-pad
-    16-32x if carried through the scan). This decodes them on demand
+    cell-level masks only (no (C, G) per-segment arrays are carried
+    through the scan). This decodes them on demand
     from the packed activity the forward pass cached: for each segment,
     the potential (active) and connected-active synapse counts wrt the
     PREVIOUS step's active cells — exactly the values the last forward
@@ -730,8 +704,8 @@ def tm_step(
     `active_cols` is the SP's exactly-A top-k column index list (any
     order; sorted internally so downstream compaction is by ascending
     id). `col_active` optionally passes the matching (C,) bool mask
-    when the caller already has one (the SP's `active_mask`) — the
-    (C, A) compare-any rebuild is ~1.7 ms/step at the 16K geometry.
+    when the caller already has one (the SP's `active_mask`), which
+    saves rebuilding it from the index list.
     `learning`, `compute_winner`, `return_debug` are jit-static,
     mirroring the `learning` / `return_winner_cell` flags of
     `networks.py:91`. `epsilon` overrides `cfg.epsilon` for this call
@@ -779,7 +753,7 @@ def tm_step(
         raise ValueError(
             "distal_forward substitutes the inference forward pass only "
             "(the learning path fuses its forward into the punish/death "
-            "table kernel — substitute the whole step via the "
+            "table pass — substitute the whole step via the "
             "temporal_memory= hook to change learning-mode semantics); "
             "it also cannot combine with frozen_word/serving_table")
     if epsilon is not None and epsilon != cfg.epsilon:
@@ -818,19 +792,17 @@ def tm_step(
     if learning:
         with jax.named_scope("tm_learn"):
             syn_mid, perm_mid, seg_cell, learn_metrics, debug = _learn(
-                cfg, state, k_grow, active_cols, col_active, pred_rows,
+                cfg, state, k_grow, active_cols, pred_rows,
                 winner_rows, cell_max_j, seg_j,
             )
         # punishment: matching segments of non-active columns
         # (projections.py:269,290-293), fused with the forward
-        # activation pass into one full-table kernel (disjoint from the
+        # activation pass into one full-table pass (disjoint from the
         # active-column rows _learn just wrote).
         # (C,) i32 bitmask word, bit g = punished[c, g]: the previous
         # step's matching flags arrive already packed in the carried
         # matching_word; masking out active columns (and step 0) is a
-        # (C,)-wide select. The kernel (or XLA fallback) extracts the
-        # per-lane bit, replacing a table-sized seg_broadcast
-        # materialization.
+        # (C,)-wide select. The table pass extracts the per-slot bit.
         pun_word = jnp.where(
             col_active | (state.step <= 0),
             0,
@@ -842,7 +814,7 @@ def tm_step(
         # The syn table is read-only in it (dead = perm < 0); syn_mid
         # already carries the learning phase's row writes.
         (perm_full, act_now, potential, connected, matching, seg_active,
-         prediction) = table_update(
+         prediction) = table_update_xla(
             syn_mid, perm_mid, state.synapse_act, pun_word,
             active_cols, act_bits, seg_cell, D,
             cfg.permanence_punishment, cfg.permanence_threshold,
@@ -942,8 +914,8 @@ def tm_step(
     )
     # Always-on: the driver-loop observables and the capacity-drop
     # safety counters (all A-sized, cheap). Opt-out (`detailed_metrics`,
-    # jit-static): the full-table (C, G)/(C, D) occupancy reductions —
-    # ~0.3 ms/step at B=256 the serving loop need not pay.
+    # jit-static): the full-table (C, G)/(C, D) occupancy reductions,
+    # which the serving loop need not pay for.
     metrics = {
         "tm_bursting_columns": col_burst.sum(dtype=jnp.int32),
         "tm_active_cells": act_rows.sum(dtype=jnp.int32),

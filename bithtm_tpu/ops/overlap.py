@@ -3,20 +3,18 @@
 Reference semantics (`projections.py:18-21`): per column, count input
 bits that land on connected synapses (permanence >= threshold).
 
-TPU form: the connection matrix is binary, so it is cached **bit-packed
-as uint8** (`SPState.connected`, (C, S = ceil(I/8))) and the overlap is
-a popcount of the AND with the packed input — 1/8th the HBM traffic of
-an int8 matrix (the int8 matvec is bandwidth-bound: each stream has its
-own connection matrix, so the MXU gets no operand reuse).
+Form: the connection matrix is binary, so it is cached **bit-packed as
+uint8** (`SPState.connected`, (C, S)) and the overlap is a popcount of
+the AND with the packed input — 1/8th the memory traffic of an int8
+matrix (an int8 matvec would be bandwidth-bound: each stream has its
+own connection matrix, so there is no operand reuse).
 
 The bit mapping is **strided**: bit j of word w holds input
 ``i = j*S + w`` (NOT the row-major ``i = 8*w + j``), so the pack is 8
 OR-shifted slice reads that XLA fuses into the permanence-update pass
-with no boolean intermediate, no reshape, no relayout (both the
-row-major u32 pack and a reshape+reduce form measurably materialized
-0.5 GB+ of padded pred / forced transposed-layout copies per step at
-batch 256). The mapping is private to this module — always go through
-`pack_input` / `unpack_connected`.
+with no boolean intermediate, no reshape, no relayout. The mapping is
+private to this module — always go through `pack_input` /
+`unpack_connected`.
 """
 
 from __future__ import annotations
@@ -28,11 +26,9 @@ import jax.numpy as jnp
 def input_words(input_dim: int) -> int:
     """uint8 words per packed input row.
 
-    Rounded up to a 128-lane multiple so the 8 OR-shifted slice reads of
-    the strided pack are 128-aligned — the alignment the fused Pallas SP
-    kernel (`pallas_kernels.sp_update_pack_tpu`) needs for its in-kernel
-    pack (the unaligned S=ceil(I/8) variant sat in Mosaic compile for
-    >15 minutes, docs/PERFORMANCE.md). The padding bits are always zero.
+    Rounded up to a multiple of 128 words, so the 8 OR-shifted slice
+    reads of the strided pack start at aligned offsets. The padding
+    bits are always zero.
     """
     return max(128, ((input_dim + 7) // 8 + 127) // 128 * 128)
 
@@ -50,13 +46,10 @@ def pack_input(bits: jnp.ndarray) -> jnp.ndarray:
     """(..., I) bool -> (..., S = ceil(I/8)) uint8, **strided mapping**:
     bit j of word w holds input ``i = j*S + w``.
 
-    The strided layout keeps the word axis co-located with the lane
-    axis, and the pack is written as 8 OR-shifted *slice* reads of the
+    The strided layout keeps the word axis minor, and the pack is written as 8 OR-shifted *slice* reads of the
     source so XLA fuses it into one (…, S)-shaped loop fusion reading 8
     windows of the producer — no boolean intermediate, no reshape, no
-    relayout (the reshape+reduce form measurably forced a transposed
-    layout on the s16 SP permanence table plus a full pred
-    materialization). Which input lands in which bit is private to this
+    relayout. Which input lands in which bit is private to this
     module (pack/unpack/overlap agree; the overlap's AND+popcount is
     mapping-agnostic).
     """

@@ -13,10 +13,10 @@ graph needs none of that generality:
   pruned entirely at freeze time with bit-identical predictions
   (`/root/reference/bithtm/projections.py:245-251` semantics);
 * pool slots are ~57% occupied and segments hold ~32 of their K=64
-  slots at steady state (measured, docs/PERFORMANCE.md), so per-COLUMN
-  compaction — all of a column's connected synapses packed into one
-  128-lane row — roughly halves the element count on top of halving
-  the bytes.
+  slots at steady state (counted on the 2048 x 32 reference workload,
+  docs/QUALITY.md), so per-COLUMN compaction — all of a column's
+  connected synapses packed into one 128-wide row — roughly halves the
+  element count on top of halving the bytes.
 
 Layout: ONE i32 word per connected synapse,
 
@@ -32,9 +32,7 @@ A column may own several extension rows.
 The forward pass emits one byte per slot — ``g+1`` where the synapse's
 presynaptic cell is active, else 0 — so the per-(column, segment)
 connected-active counts decode from a 1 B/elem read
-(`serving_counts`). Dispatches to a Pallas kernel on TPU (the same
-salted-hash / bisection active-set matcher as the learning kernels),
-pure XLA elsewhere; identical results.
+(`serving_counts`).
 """
 
 from __future__ import annotations
@@ -44,12 +42,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from .active_set import (
-    _pallas_block,
-    active_uses_gather,
-    rank_ascending,
-    synapse_activation_xla,
-)
+from .active_set import synapse_activation_xla
 
 SERVING_G_BITS = 5          # segment field of the packed word (G <= 32)
 _SERVING_CELL_MAX = 1 << 26  # cell id must fit bits 5..30
@@ -207,36 +200,16 @@ def serving_counts(table: ServingTable, cols, bits, column_dim: int,
     """Per-(column, segment) connected-active counts of ONE stream:
     the whole frozen forward pass. Returns (C, G) int32.
 
-    Dispatches the activation to the Pallas serving kernel on TPU
-    (XLA elsewhere), then decodes counts from the 1-byte activation:
+    The activation is decoded into counts from the 1-byte form:
     count[c, g] = |{slots of column c with value g+1}|, extension rows
-    folded in with a one-hot contraction."""
+    added onto their owning columns by an integer scatter-add."""
     rows, ext_col = table.rows, table.ext_col
     R = rows.shape[0]
     E = ext_col.shape[0]
     C, G = column_dim, num_segments
     M = (R - E) // C
     assert C * M + E == R, (rows.shape, ext_col.shape, C)
-    main_rows = rows[: C * M]
-    act_main = None
-    if jax.default_backend() == "tpu":
-        block = _pallas_block(C * M, 4 * 128,
-                              active_uses_gather(cols, 128))
-        if block:
-            from .pallas_kernels import serving_activation_tpu
-
-            act_main = serving_activation_tpu(main_rows, cols, bits,
-                                              cell_dim, block=block)
-    if act_main is None:
-        act_main = serving_activation_xla(main_rows, cols, bits, cell_dim)
-    if E:
-        # the handful of extension rows ride the XLA form (E is 8-ish;
-        # a separate kernel tile would cost more than it computes)
-        act = jnp.concatenate(
-            [act_main, serving_activation_xla(rows[C * M:], cols, bits,
-                                              cell_dim)], axis=0)
-    else:
-        act = act_main
+    act = serving_activation_xla(rows, cols, bits, cell_dim)
     gi = jnp.arange(1, G + 1, dtype=jnp.int32)
     cnt = jnp.sum(
         act[:, None, :].astype(jnp.int32) == gi[None, :, None],
@@ -245,12 +218,5 @@ def serving_counts(table: ServingTable, cols, bits, column_dim: int,
     main = cnt[: C * M].reshape(C, M, G).sum(axis=1)
     if E == 0:
         return main
-    onehot = (
-        ext_col[:, None] == jnp.arange(C, dtype=jnp.int32)[None, :]
-    ).astype(jnp.float32)                                  # (E, C)
-    ext = jax.lax.dot_general(
-        onehot, cnt[C * M:].astype(jnp.float32),
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ).astype(jnp.int32)                                    # (C, G)
-    return main + ext
+    # unused extension rows carry ext_col == C and are dropped
+    return main.at[ext_col].add(cnt[C * M:], mode="drop")

@@ -89,7 +89,11 @@ class OracleTM:
     # ---- helpers -------------------------------------------------------
 
     def cell_segments(self, cell):
-        return [s for s in range(self.S) if self.owner[s] == cell]
+        # the pool is per-column: only column (cell // D)'s G slots can
+        # be owned by one of its cells
+        c = cell // self.D
+        return [s for s in range(c * self.G, (c + 1) * self.G)
+                if self.owner[s] == cell]
 
     def column_cells(self, column):
         return range(column * self.D, (column + 1) * self.D)
@@ -391,28 +395,31 @@ class OracleTM:
         seg_cell = np.asarray(tm_state.seg_cell)                  # (C, G)
         cell_tab = np.asarray(tm_state.synapse_cell).reshape(C, G, -1)
         perm_tab = np.asarray(tm_state.synapse_perm).reshape(C, G, -1)
-        K = cell_tab.shape[-1]
+        # dead iff perm < 0: punishment death leaves the stale target id
+        # in synapse_cell (implicit-death convention, see TMState
+        # docstring) — those slots are not live
+        live = (cell_tab >= 0) & (perm_tab >= 0)
+        jax_alloc = (seg_cell < D).reshape(-1)
+        jax_any = live.any(-1).reshape(-1)
 
         for s in range(self.S):
-            c, g = divmod(s, G)
             o = self.owner[s]
-            jax_alloc = seg_cell[c, g] < D
-            if (o is not None) != bool(jax_alloc):
+            if (o is None and not jax_alloc[s] and not jax_any[s]
+                    and not self.synapses[s]):
+                continue
+            c, g = divmod(s, G)
+            if (o is not None) != bool(jax_alloc[s]):
                 raise ParityError(f"slot {s} allocation mismatch")
             if o is not None and o != c * D + seg_cell[c, g]:
                 raise ParityError(
                     f"slot {s} owner {c * D + seg_cell[c, g]} != {o}"
                 )
             jax_syn = {}
-            for k in range(K):
-                # dead iff perm < 0: punishment death leaves the stale
-                # target id in synapse_cell (implicit-death convention,
-                # see TMState docstring) — skip those slots
-                if cell_tab[c, g, k] >= 0 and perm_tab[c, g, k] >= 0:
-                    t = int(cell_tab[c, g, k])
-                    if t in jax_syn:
-                        raise ParityError(f"slot {s} duplicate synapse {t}")
-                    jax_syn[t] = float(perm_tab[c, g, k])
+            for t, p in zip(cell_tab[c, g][live[c, g]].tolist(),
+                            perm_tab[c, g][live[c, g]].tolist()):
+                if t in jax_syn:
+                    raise ParityError(f"slot {s} duplicate synapse {t}")
+                jax_syn[t] = p
             if set(jax_syn) != set(self.synapses[s]):
                 raise ParityError(
                     f"slot {s} synapse targets {sorted(jax_syn)} != "

@@ -5,13 +5,13 @@ multiprocessing, sockets, or collectives anywhere). Here multi-host
 scale rides entirely on `jax.distributed` + GSPMD: every process calls
 `initialize()`, builds the same global mesh over all devices, and the
 `parallel.mesh.sharded_step` program runs unmodified — XLA routes the
-(tiny, A-sized) cross-shard traffic over ICI/DCN.
+(tiny, A-sized) cross-shard traffic between the devices.
 
 HTM's stream axis is embarrassingly parallel, so the recommended
 multi-host layout is data-parallel over all hosts (zero inter-host
 traffic during the step; each host feeds its local shard of the stream
-batch) with model-parallel sharding only inside a host's ICI domain for
-configs whose tables exceed one chip.
+batch) with model-parallel sharding only among the devices of one host
+for configs whose tables exceed one device.
 
 Fault tolerance (SURVEY.md §5): the whole model is one pytree, so
 elastic recovery is checkpoint/restore (`utils.checkpoint`) — on any
@@ -36,9 +36,10 @@ import jax
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Initialize multi-process JAX. With no arguments, uses the
-    standard cluster environment variables (JAX_COORDINATOR_ADDRESS
-    etc. / TPU pod metadata)."""
+    """Initialize multi-process JAX. Pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id``; with no
+    arguments JAX must find them in a cluster environment it knows
+    (e.g. SLURM), and fails where there is none."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

@@ -8,13 +8,13 @@ Scaling here is mesh-native instead of backend-ported:
     by `htm_step_batch`). Zero cross-device communication: every stream
     owns its whole model state.
   * **model axis** — shards the segment pool (S) and the SP column
-    dimension (C) for configs whose tables exceed one chip (e.g. the
+    dimension (C) for configs whose tables exceed one device (e.g. the
     16K-column x 64-cell scaled config). GSPMD inserts the collectives:
     per-cell prediction reduction is a scatter-max across pool shards
     (psum-like), SP top-k gathers the (C,) boosted overlaps.
 
-Everything goes through `jax.jit` with NamedSharding annotations —
-collectives ride ICI automatically; no hand-written NCCL analogue.
+Everything goes through `jax.jit` with NamedSharding annotations; XLA
+inserts the collectives (over NVLink between the GPUs of a host).
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def sharded_step(cfg, mesh: Mesh, learning: bool = True):
 def sharded_serve_step(cfg, mesh: Mesh):
     """The serving step (`htm_serve_scan` semantics: learning off,
     winner pass off) with explicit mesh shardings — model-parallel
-    serving for configs whose tables exceed one chip. Bit-identical to
+    serving for configs whose tables exceed one device. Bit-identical to
     the unsharded serve path
     (`tests/test_parallel.py::test_sharded_serve_matches_unsharded`)::
 

@@ -33,7 +33,8 @@ def classifier_init(features: int, buckets: int) -> ClassifierState:
 def classifier_predict(state: ClassifierState,
                        sdr: jnp.ndarray) -> jnp.ndarray:
     """(features,) bool SDR -> (buckets,) probability distribution."""
-    logits = state.weights @ sdr.astype(jnp.float32)
+    logits = jnp.dot(state.weights, sdr.astype(jnp.float32),
+                     precision=jax.lax.Precision.HIGHEST)
     return jax.nn.softmax(logits)
 
 

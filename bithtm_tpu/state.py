@@ -6,14 +6,13 @@ immutable pytree threaded through a functional step, so the whole model
 scans under `lax.scan`, vmaps over independent streams, checkpoints as a
 pytree, and shards with `jax.sharding`.
 
-TPU layout notes:
+Layout notes:
   * The synapse pool is **per-column**: column ``c`` owns slots
-    ``(c, 0..G)``; flat tables are ``(C, G*K)`` so the minor axis is a
-    multiple of 128 lanes (no tile padding) and per-column rows are
+    ``(c, 0..G)``; flat tables are ``(C, G*K)`` so per-column rows are
     contiguous (cheap row gather/scatter of the A active columns).
   * Segment owners are stored as cell-within-column (`seg_cell`,
     sentinel = cell_dim), making every per-cell reduction a one-hot
-    over the tiny D axis instead of a 65k-wide scatter (the reference
+    over the small D axis instead of a 65k-wide scatter (the reference
     scatters over a global `segment_bundle`, `projections.py:226`).
   * The recurrent active/winner sets are stored compactly as
     ``(A,) cols + (A, W) uint32 bitmasks`` (see `ops/active_set.py`) —
@@ -26,14 +25,24 @@ TPU layout notes:
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .config import HTMConfig, SPConfig, TMConfig
 
 
-class SPState(struct.PyTreeNode):
+def _pytree_dataclass(cls):
+    """A frozen dataclass registered as a pytree whose fields are all
+    children, with ``.replace(**changes)`` for functional updates."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls)
+
+
+@_pytree_dataclass
+class SPState:
     """Spatial pooler parameters + homeostasis.
 
     ``permanence`` is the learnable proximal matrix (`projections.py:16`);
@@ -51,7 +60,8 @@ class SPState(struct.PyTreeNode):
     duty_cycle: jax.Array   # (C,) float32
 
 
-class TMState(struct.PyTreeNode):
+@_pytree_dataclass
+class TMState:
     """Temporal memory synapse pool + recurrent state.
 
     Pool (replaces `SparseProjection`'s dual-index DynamicArray2D graph,
@@ -59,8 +69,9 @@ class TMState(struct.PyTreeNode):
       synapse_cell: (C, G*K) int32  global presynaptic cell, -1 free
       synapse_perm: (C, G*K) float32  permanence; a slot is dead iff
         perm < 0 (free slots sit at the -1.0 sentinel). Punishment death
-        leaves the stale target id in synapse_cell (the table kernel no
-        longer rewrites the syn table — a full-table write per step);
+        leaves the stale target id in synapse_cell (the table pass does
+        not rewrite the syn table — that would be a full-table write per
+        step);
         the perm < 0 mask keeps stale targets out of every activation,
         and the learning phase rewrites stale slots to (-1, -1.0) when
         it next gathers their column.
@@ -74,20 +85,19 @@ class TMState(struct.PyTreeNode):
       synapse_act: (C, G*K) packed per-synapse-slot activity wrt the
         previous step's active set, computed by the forward pass on the
         post-step table: v = act + scale*conn (`ops.active_set.act_scale`;
-        nonzero = active, v > 1 = also connected; bf16 when K <= 127,
-        f32 above). The table does not change between one step's forward
-        pass and the next step's learning phase, so this is exactly the
-        `act_prev` the learning phase needs — caching it halves the
+        nonzero = active, v > 1 = also connected; dtype from
+        `ops.active_set.act_dtype`). The table does not change between
+        one step's forward pass and the next step's learning phase, so
+        this is exactly the `act_prev` the learning phase needs —
+        caching it halves the
         number of full-table activation passes per step; packing conn
         into the same value halves the forward pass's mask-output
         traffic and its count-dot operand reads (one dot + exact decode,
         `ops.active_set.seg_counts_packed`).
       prediction:  (W, C) uint32  packed cell predictive state for the
         next step (bit d of word [w, c] = cell w*32+d of column c
-        predictive; see `ops.active_set.prediction_words`). Word-major
-        so the 128-lane axis stays on C — the dense (C, D) bool carry
-        cost ~0.4 ms/step of transposed-layout scan-carry copies at
-        B=256.
+        predictive; see `ops.active_set.prediction_words`). Word-major,
+        so C is the minor axis.
       matching_word: (C,) int32  bit g = segment g matching (potential
         >= matching_threshold) — the only cross-step full-C flag the
         next step needs (the punishment set). Per-segment potential /
@@ -95,8 +105,7 @@ class TMState(struct.PyTreeNode):
         re-derives them at its A active rows from `synapse_act` and
         `synapse_perm` (both unchanged between a step's forward pass
         and the next step's learning phase), which drops three
-        (C, G)-shaped carries whose 4-8/128-lane minor axis tile-padded
-        16-32x physically.
+        (C, G)-shaped carries.
       step: () int32  timestep counter; step 0 has no previous distal
         state, so learning is skipped exactly like the reference's
         `update(prev_state=None)` early-return (`projections.py:258-259`).
@@ -115,7 +124,8 @@ class TMState(struct.PyTreeNode):
     step: jax.Array
 
 
-class HTMState(struct.PyTreeNode):
+@_pytree_dataclass
+class HTMState:
     """Full model state: one independent HTM stream (vmap for a batch)."""
 
     sp: SPState

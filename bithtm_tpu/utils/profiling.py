@@ -7,11 +7,11 @@ whole run (`example.py:46,67`). Here (SURVEY.md §5):
     xprof/perfetto-compatible dumps (the step itself is annotated with
     `jax.named_scope("sp"/"tm")` in `models/htm.py`, so device traces
     attribute time per phase).
-  * `PhaseTimer` — host-side wall-clock phase timing with explicit
-    device synchronization, for quick interactive numbers without a
-    trace viewer. Remote/async backends can report completion before
-    work drains, so it blocks on a materialized leaf, not just
-    `block_until_ready`.
+  * `PhaseTimer` — host-side wall-clock phase timing, for quick
+    interactive numbers without a trace viewer. Dispatch is
+    asynchronous: end each timed phase with `jax.block_until_ready`.
+  * `require_gpu` — the device check every measurement entry point
+    makes: timings come from the GPU, never from a CPU fallback.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ import contextlib
 import time
 
 import jax
-import numpy as np
 
 
 @contextlib.contextmanager
@@ -33,20 +32,17 @@ def trace(logdir: str):
         jax.profiler.stop_trace()
 
 
-def drain(tree) -> None:
-    """Block until `tree`'s computation has actually finished, by
-    forcing a host read of one element of its first array leaf."""
-    for leaf in jax.tree_util.tree_leaves(tree):
-        if hasattr(leaf, "ndim"):
-            x = leaf
-            try:
-                while getattr(x, "ndim", 0) > 0:
-                    x = x[(0,) * x.ndim]
-                np.asarray(jax.device_get(x))
-            except TypeError:  # e.g. typed PRNG keys
-                continue
-            return
-    jax.block_until_ready(tree)
+def require_gpu(allow_cpu: bool = False):
+    """Return the first JAX device after checking that it is a GPU.
+
+    ``allow_cpu`` is an entry point's explicit ``--cpu`` flag: then the
+    CPU backend is accepted. Otherwise a process with no GPU exits with
+    a message instead of measuring the CPU."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu" and not allow_cpu:
+        raise SystemExit(f"no GPU found (JAX platform {dev.platform!r}); "
+                         f"pass --cpu to run on the CPU backend")
+    return dev
 
 
 class PhaseTimer:
@@ -54,7 +50,7 @@ class PhaseTimer:
 
     with timer.phase("tm_forward"):
         out = step(...)
-        drain(out)
+        jax.block_until_ready(out)
     print(timer.report())
     """
 

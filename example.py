@@ -1,9 +1,13 @@
 """CLI driver mirroring the reference benchmark loop (`example.py:15-67`):
 random bool patterns, per-step XOR noise, per-step bursting / correct /
-incorrect column metrics, total wall-clock. Adds TPU-native extras the
-reference lacks: --batch (vmapped independent streams), --scan (whole
-epochs as one lax.scan), --oracle (NumPy oracle TM for comparison),
---checkpoint (save/resume).
+incorrect column metrics, total wall-clock. Adds extras the reference
+lacks: --batch (vmapped independent streams), --scan (whole epochs as
+one lax.scan), --oracle (NumPy oracle TM for comparison), --checkpoint
+(save/resume).
+
+Runs on the GPU; with no GPU it exits nonzero unless --cpu asks for the
+CPU backend. The persistent compilation cache is on
+(`bithtm_tpu.utils.compile_cache`).
 """
 
 import argparse
@@ -88,7 +92,9 @@ def main():
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--scan", action="store_true",
                    help="run each epoch as one lax.scan")
-    p.add_argument("--cpu", action="store_true")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU backend (otherwise a GPU is "
+                        "required)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint", type=str, default=None,
                    help="directory to save final state / resume from")
@@ -105,21 +111,18 @@ def main():
     p.add_argument("--log", type=str, default=None,
                    help="append per-step metrics to this JSONL file")
     p.add_argument("--quiet", action="store_true")
-    p.add_argument("--compile_cache", nargs="?", const="", default=None,
-                   metavar="DIR",
-                   help="persistent XLA compilation cache (warm process "
-                        "start; optional DIR, default "
-                        "~/.cache/bithtm_tpu/xla)")
     args = p.parse_args()
 
     import jax
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    if args.compile_cache is not None:
-        from bithtm_tpu.utils.compile_cache import enable_compilation_cache
+    from bithtm_tpu.utils.compile_cache import enable_compilation_cache
+    from bithtm_tpu.utils.profiling import require_gpu
 
-        enable_compilation_cache(args.compile_cache or None)
+    require_gpu(args.cpu)
+
+    enable_compilation_cache()
     import functools
 
     import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Adversarial anomaly benchmark: the encoder -> HTM -> likelihood ->
 window-scoring stack on data designed to make it FAIL, not to showcase
-it (round-3 VERDICT #2: `anomaly_detection.py`'s F1 1.00 on its own
-easy task discriminates nothing).
+it (`anomaly_detection.py`'s F1 1.00 on its own easy task
+discriminates nothing).
 
 Eight tasks, each a scalar stream with NAB-style ground-truth windows
 and a probation period, spanning the failure modes the easy demo never
@@ -33,12 +33,12 @@ false-positive counts (there is nothing to recall).
 History: round 4 ran likelihood-only at the permissive 0.99 threshold
 and honestly scored F1 0.00 on noisy_spike / drift_fp with a 3-5-alert
 clean-trace FP floor — chronic noise and drift flood the likelihood
-model's own score distribution (docs/PERFORMANCE.md "Anomaly
+model's own score distribution (docs/QUALITY.md "Anomaly
 benchmark"). The round-5 `seasonal_zscore` stage (median-of-lags
 residual, windowed z) is immune to both failure modes and carries the
 point/level anomalies, which lets the likelihood threshold rise to the
 NAB standard: measured at 3 seeds, every scoreable task is F1 1.00
-with ZERO clean-trace FPs (ablations in PERFORMANCE.md). This suite
+with ZERO clean-trace FPs (ablations in docs/QUALITY.md). This suite
 remains adversarial against the likelihood-only path (run
 `--z_alert 0` to reproduce the round-4 failures).
 Run: python examples/anomaly_benchmark.py [--cpu] [--seeds N]

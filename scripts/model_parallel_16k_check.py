@@ -4,8 +4,8 @@
 toy shape and `__graft_entry__.dryrun_multichip` re-asserts it on tiny
 shapes every round; this script runs the same assertion at the REAL
 scaled-config shape (column_dim=16384, cell_dim=64, A=328, fast stack)
-— the config whose scaling axis IS model parallelism (see
-docs/PERFORMANCE.md "Scaled config") — over an 8-virtual-device CPU
+— the config whose scaling axis IS model parallelism — over an
+8-virtual-device CPU
 mesh, all devices on the model axis, so the C-axis sharding (2048
 columns per device), the replicated active-set lists, and the GSPMD
 collectives are exercised at deployment geometry rather than toy

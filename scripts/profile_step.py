@@ -2,10 +2,9 @@
 
 Traces ``--trace_steps`` scan iterations of the batched learning step
 with `jax.profiler`, parses the resulting ``*.trace.json.gz`` and prints
-per-op device durations divided by the step count — the method
-docs/PERFORMANCE.md numbers come from.
+per-op device durations divided by the step count.
 
-Run (real TPU): python scripts/profile_step.py [--fast] [--batch 256]
+Run: python scripts/profile_step.py [--fast] [--batch 256]
 """
 
 import argparse
@@ -48,6 +47,9 @@ def main():
 
     from bithtm_tpu import (htm_init_batch, htm_scan, htm_serve_scan,
                             make_htm_config)
+    from bithtm_tpu.utils.profiling import require_gpu
+
+    require_gpu()
 
     overrides = {}
     if args.fast:
@@ -72,14 +74,12 @@ def main():
         run = lambda st: htm_scan(cfg, st, seq, learn,
                                   detailed_metrics=args.detailed_metrics)
     state, m = run(state)  # compile + warm
-    _ = float(np.asarray(m["bursting"][-1]).sum())
-    jax.block_until_ready(state)
+    jax.block_until_ready((state, m))
 
     tmp = tempfile.mkdtemp(prefix="htm_trace_")
     jax.profiler.start_trace(tmp)
     state, m = run(state)
-    _ = float(np.asarray(m["bursting"][-1]).sum())
-    jax.block_until_ready(state)
+    jax.block_until_ready((state, m))
     jax.profiler.stop_trace()
 
     traces = glob.glob(os.path.join(tmp, "**", "*.trace.json.gz"),
@@ -88,7 +88,7 @@ def main():
     with gzip.open(traces[0], "rt") as f:
         data = json.load(f)
 
-    # device-lane complete events only (pid names contain TPU/device)
+    # device-lane complete events only (pid names contain "device")
     pid_name = {}
     for ev in data["traceEvents"]:
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
@@ -101,14 +101,14 @@ def main():
         if ev.get("ph") != "X":
             continue
         pname = pid_name.get(ev.get("pid"), "")
-        if not ("TPU" in pname or "/device" in pname or "Device" in pname):
+        if not ("/device" in pname or "Device" in pname):
             continue
         name = ev.get("name", "?")
         # skip the whole-program wrapper events (they contain the rest)
         if name.startswith("jit_") or name.startswith("while"):
             continue
         # merge per-instance op names: fusion.123 -> fusion, vmap_tm_.17
-        # -> vmap_tm_ (the 4 scan-unroll clones of each op)
+        # -> vmap_tm_ (the scan-unroll clones of each op)
         name = re.sub(r"[.\d]+$", "", name)
         d = ev.get("dur", 0) / 1e3  # us -> ms
         dur_by_op[name] += d
@@ -130,7 +130,7 @@ def main():
         if ev.get("ph") != "X":
             continue
         pname = pid_name.get(ev.get("pid"), "")
-        if not ("TPU" in pname or "/device" in pname or "Device" in pname):
+        if not ("/device" in pname or "Device" in pname):
             continue
         name = ev.get("name", "?")
         if name.startswith("jit_") or name.startswith("while"):

@@ -1,8 +1,8 @@
 """Deployment-scale soak of `allocation_policy="evict"` under sustained
-column-pool pressure (VERDICT r2 #6).
+column-pool pressure.
 
 Scales `tests/test_pool_pressure.py`'s worst-case workload to the full
-2048x32 config on the real chip: per stream, N rotating context patterns
+2048x32 config on the GPU: per stream, N rotating context patterns
 each followed by one shared pattern S, with N > segments_per_column, so
 S's columns must host one segment per context in a pool that cannot fit
 them all. The reference would grow its table without bound
@@ -17,7 +17,7 @@ Healthy result over >=10k steps x B streams:
     window (recovery, not permanent lockout)
   * steps/s flat across windows
 
-Run on the real TPU:  python scripts/soak_evict_pressure.py
+Run on the GPU:  python scripts/soak_evict_pressure.py
 CPU smoke (minutes):  python scripts/soak_evict_pressure.py --cpu \
     --steps 800 --batch 4
 """
@@ -52,7 +52,9 @@ import jax.numpy as jnp
 from bithtm_tpu import TMConfig
 from bithtm_tpu.models.temporal_memory import tm_step
 from bithtm_tpu.state import tm_init
-from bithtm_tpu.utils.profiling import drain
+from bithtm_tpu.utils.profiling import require_gpu
+
+require_gpu(args.cpu)
 
 C, D, A, G = 2048, 32, 41, 4
 N, B = args.contexts, args.batch
@@ -114,7 +116,7 @@ def run_window(carry, cols_seq):
 carry = (state0, keys0)
 W = args.window
 assert T % W == 0 and W % 2 == 0
-tput = []
+rates = []
 print(f"# policy={args.policy} {C}x{D} G={G} N={N} B={B} T={T}",
       flush=True)
 for w in range(T // W):
@@ -127,7 +129,7 @@ for w in range(T // W):
     s_pred = m["pred_frac"][1::2] / A                 # (W/2, B)
     recovered = (m["pred_frac"][1::2] == A).any(axis=0).mean()
     sps = W * B / dt
-    tput.append(sps)
+    rates.append(sps)
     print(
         f"steps {(w + 1) * W:6d}: evicted/step {m['evicted'].sum() / W:6.1f}"
         f"  drops {int(m['drops'].sum())}"
@@ -138,7 +140,8 @@ for w in range(T // W):
         f"  {sps:8.0f} steps/s",
         flush=True,
     )
-    drain(carry[1])
+    jax.block_until_ready(carry)
 
-print(f"# throughput first->last window: {tput[0]:.0f} -> {tput[-1]:.0f} "
-      f"steps/s ({tput[-1] / max(tput[0], 1e-9):.2f}x)", flush=True)
+print(f"# throughput first->last window: {rates[0]:.0f} -> {rates[-1]:.0f} "
+      f"steps/s ({rates[-1] / max(rates[0], 1e-9):.2f}x) on "
+      f"{jax.devices()[0].device_kind}", flush=True)

@@ -5,7 +5,7 @@ scale it (e.g. the 16384x64 scaled config at --batch 64).
 
 Healthy result: bursting -> ~0, correct -> ~A/A by the end, zero (or
 counted-benign) drop counters, pool occupancy well under C*G.
-Run on the real TPU: python scripts/soak_fast_stack.py
+Run on the GPU: python scripts/soak_fast_stack.py
 """
 import os, sys, time
 
@@ -26,6 +26,9 @@ _p.add_argument("--chunks", type=int, default=10,
                 help="chunks of 200 steps each (default 2000 total)")
 _p.add_argument("--patterns", type=int, default=100)
 _args = _p.parse_args()
+from bithtm_tpu.utils.profiling import require_gpu
+
+require_gpu()
 cfg = make_htm_config(input_dim=1000, column_dim=_args.column_dim,
                       cell_dim=_args.cell_dim,
                       segments_per_column=4, synapse_capacity=64,

@@ -59,11 +59,8 @@ def test_bench_modes_print_one_json_line(tmp_path):
                  "--repeats", "1", *extra])
         json_lines = [json.loads(l) for l in r.stdout.splitlines()
                       if l.startswith("{")]
-        # wedge insurance: a provisional record after warmup AND a
-        # best-so-far after each repeat — the driver parses the LAST,
-        # but every earlier line must already be parseable
-        assert len(json_lines) >= 3, r.stdout
-        rec = json_lines[-1]
-        assert {"metric", "value", "unit", "vs_baseline"} <= set(rec)
+        assert len(json_lines) == 1, r.stdout
+        rec = json_lines[0]
+        assert {"metric", "value", "unit", "vs_baseline", "device"} <= set(rec)
         assert rec["value"] > 0
-        assert all({"metric", "value"} <= set(j) for j in json_lines)
+        assert rec["device"]["platform"] == "cpu"

@@ -223,9 +223,7 @@ def test_frozen_word_step_bit_equals_unpacked():
     """The kept (not-dispatched-by-default) frozen-word forward:
     `htm_step_batch(..., frozen_word=...)` over a `pack_frozen_table`
     snapshot is bit-equal to the unpacked inference step — the contract
-    for re-enabling it on hardware where the activation kernel is
-    bandwidth- rather than gather-bound (see docs/PERFORMANCE.md
-    "Tried and rejected")."""
+    for enabling it where the activation pass is bandwidth-bound."""
     from bithtm_tpu.ops.active_set import pack_frozen_table
 
     cfg = small_cfg()

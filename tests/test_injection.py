@@ -115,7 +115,7 @@ def test_custom_overlap_through_sp_wrapper():
 
 
 def test_custom_overlap_end_to_end_htm():
-    """The VERDICT #8 done-bar: a custom overlap rule swapped in
+    """The done-bar: a custom overlap rule swapped in
     end-to-end — the full HTM pipeline (SP -> TM, learning on) runs on
     top of it and the custom overlaps reach the driver observables."""
     htm = HierarchicalTemporalMemory(
@@ -189,28 +189,6 @@ def test_epsilon_per_call():
     tm.process(sp_out)                      # cfg default epsilon
     tm.process(sp_out, epsilon=1e-6)        # per-call override retraces
     tm.process(sp_out, epsilon=tm.config.epsilon)  # no-op override
-
-
-def test_pallas_fallback_warns_once():
-    from bithtm_tpu.ops import active_set
-
-    active_set._warned_fallback_shapes.clear()
-    # 2049 rows x 1536B: odd row count, > VMEM budget -> fallback + warn
-    with pytest.warns(UserWarning, match="fall back"):
-        assert active_set._pallas_block(2049, 1536) == 0
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")     # second call must stay silent
-        assert active_set._pallas_block(2049, 1536) == 0
-    # eligible shapes never warn
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        # 384KB per-tile budget (see _pallas_block): 256*1536 lands
-        # exactly on it; the fused table-update tile (12B/slot at
-        # J=384) drops to 64-row blocks
-        assert active_set._pallas_block(2048, 1536) == 256
-        assert active_set._pallas_block(2048, 4608) == 64
 
 
 def test_htm_scan_rejects_unbatched_inputs_with_batched_state():

@@ -328,7 +328,7 @@ def test_elastic_recovery_restart_resumes_bitexact(tmp_path):
 
 
 def test_four_process_wide_drill(tmp_path):
-    """Round-3 VERDICT #7: 4 processes x 2 virtual devices. 8-way
+    """4 processes x 2 virtual devices. 8-way
     data-parallel learning with per-process feeding, per-process npz
     checkpoint shards, SIGKILL of all four workers mid-loop, restore
     into fresh processes continuing bit-identically to an uninterrupted

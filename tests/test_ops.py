@@ -14,7 +14,7 @@ from bithtm_tpu.ops.active_set import (
     percell_max,
     percell_sum,
     rank_ascending,
-    synapse_activation,
+    synapse_activation_xla,
     take_percell,
     unpack_bits,
 )
@@ -59,11 +59,11 @@ def test_synapse_activation_matches_dense_gather():
         dense[cols] = rows
         syn = rng.randint(-1, N, size=(7, 11)).astype(np.int32)
         got = np.asarray(
-            synapse_activation(
+            synapse_activation_xla(
                 jnp.asarray(syn), jnp.asarray(cols),
                 pack_bits(jnp.asarray(rows)), D,
             )
-        ) != 0  # bf16 0/1 contract
+        )
         flat = dense.reshape(-1)
         expect = np.where(syn >= 0, flat[np.clip(syn, 0, N - 1)], False)
         np.testing.assert_array_equal(got, expect)

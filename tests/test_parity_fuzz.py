@@ -1,6 +1,6 @@
 """Config-fuzz oracle parity: bit-exact TM parity over ~20 geometries
 spanning the implementation's own boundaries (SURVEY.md §4's parity
-mandate, round-3 VERDICT #8).
+mandate).
 
 Each case runs the full learning parity loop (`test_tm_parity.run_parity`:
 JAX step vs the clean-room NumPy oracle, full-state comparison every
@@ -11,19 +11,15 @@ step) at a geometry chosen to sit ON a dispatch or encoding boundary:
 * ``synapse_capacity`` crossing the packed-activity dtype lines
   (`act_dtype`: u8 through K=125 — incl. K=64's non-power-of-two
   scale — bf16 for K=126..127, f32 from K=128);
-* lane-unfriendly J = G*K (J % 128 != 0 forces the compare-chain
-  matcher on TPU and odd tilings everywhere);
-* ``column_dim`` not a multiple of 8 (the Pallas kernels' XLA-fallback
-  trigger — these geometries must stay bit-exact on the fallback);
-* ``active_columns`` at the hash/chain/bisect matcher crossovers
-  (HASH_MAX_ACTIVE=48, BISECT_MIN_ACTIVE=64: A=47/48/63/64);
+* J = G*K not a multiple of 128 (odd tilings);
+* ``column_dim`` not a multiple of 8;
+* ``active_columns`` at 47/48/63/64 (crossovers of earlier matcher
+  forms, kept as odd geometries);
 * tight pools (G=1..2) and both allocation policies under the same
   odd geometries.
 
-The suite runs on the CPU backend (conftest), i.e. the XLA path; the
-Pallas kernels are separately pinned to that path in interpret mode
-(tests/test_pallas.py) and on hardware (scripts/tpu_parity_check.py),
-so XLA-path parity here transfers to the compiled kernels.
+The suite runs on the CPU backend (conftest); `chip_smoke.py` runs the
+same oracle parity with the step compiled for the GPU.
 """
 
 import pytest

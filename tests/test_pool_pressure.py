@@ -1,6 +1,6 @@
-"""Column-pool pressure study (VERDICT r1 #6).
+"""Column-pool pressure study.
 
-The TPU build replaces the reference's unbounded global segment store
+This build replaces the reference's unbounded global segment store
 (`DynamicArray2D` growth + table-wide recycling, `projections.py:79-95`
 + `utils.py:79-135`) with a static per-column pool of G slots. The
 failure mode this creates: once a column's G slots are all *mature*
@@ -130,7 +130,7 @@ def test_growth_cap_drop_mitigation():
     `tm_dropped_growth_segments` overflows can re-jit with a wider
     (explicit) `growth_capacity` and resume from the SAME state pytree
     — zero migration. This pins the mitigation path the 16K soak's
-    655-of-656 peak relies on (round-3 VERDICT #4)."""
+    655-of-656 peak relies on."""
     C, D, A, G = 96, 8, 24, 4
     base = dict(
         column_dim=C, cell_dim=D, active_columns=A,
@@ -175,7 +175,7 @@ def test_growth_cap_drop_mitigation():
 
 
 def test_htm_scan_autocap_escalates_and_stays_dropfree():
-    """`htm_scan_autocap` (round-4 VERDICT #5): starts under tight
+    """`htm_scan_autocap`: starts under tight
     tuned caps, counts the first winner/growth cap drop, re-runs that
     chunk under the safe caps — so the produced trajectory is
     drop-free on the cap counters and bit-equal to manually switching

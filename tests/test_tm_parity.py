@@ -118,7 +118,7 @@ def test_parity_reference_allocation_policy_under_pressure():
 
 
 def test_evict_equals_reference_until_first_drop():
-    """The default-flip contract (VERDICT r3 #5): `evict` is
+    """The default-flip contract: `evict` is
     bit-identical to `reference` up to and including the step where
     `reference` first drops an allocation — recyclable slots always
     outrank evictable ones in `_allocate`'s tier-key order, so the two
@@ -196,8 +196,8 @@ def test_parity_tiny_winner_capacity():
 
 
 def test_parity_midscale_real_thresholds():
-    """Mid-scale parity at the regime the defaults actually run in
-    (VERDICT r1 #7): C=512, D=32, the reference's real thresholds
+    """Mid-scale parity at the regime the defaults actually run in:
+    C=512, D=32, the reference's real thresholds
     (activation/matching 15, sampling 32, `projections.py:205-223`),
     G=8/K=48 pools, ~80 steps over a repeating 6-pattern cycle so
     matching segments, predictions, reinforcement, and punishment all
@@ -443,7 +443,7 @@ def test_select_and_fill_packed_cell():
 
 
 def test_parity_wide_active_set_no_truncation():
-    """A=160 > the old 128 cap (VERDICT r1 #2): bit-exact parity with
+    """A=160 > the old 128 cap: bit-exact parity with
     auto-scaled winner/growth capacities, zero drop counters, and
     synapse growth reaching high column ids (no low-id bias)."""
     cfg = make_cfg(

@@ -9,7 +9,7 @@ import numpy as np
 from bithtm_tpu import htm_init, htm_scan, make_htm_config
 from bithtm_tpu.utils.checks import validate_state
 from bithtm_tpu.utils.metrics_log import JsonlLogger, summarize
-from bithtm_tpu.utils.profiling import PhaseTimer, drain
+from bithtm_tpu.utils.profiling import PhaseTimer
 
 
 def small_cfg():
@@ -52,7 +52,7 @@ def test_jsonl_logger(tmp_path):
 
 
 def test_capacity_health_events(tmp_path):
-    """The JSONL logger's per-epoch capacity record (VERDICT r1 #10):
+    """The JSONL logger's per-epoch capacity record:
     drop/eviction totals, latest pool occupancy (+fraction), and an
     ok/pressure status an operator can alert on."""
     from bithtm_tpu.utils.metrics_log import capacity_health
@@ -99,8 +99,18 @@ def test_phase_timer_and_drain():
     t = PhaseTimer()
     with t.phase("x"):
         y = jnp.ones((8, 8)) * 2
-        drain(y)
+        jax.block_until_ready(y)
     assert "x" in t.report()
+
+
+def test_require_gpu_refuses_the_cpu_unless_asked():
+    import pytest
+
+    from bithtm_tpu.utils.profiling import require_gpu
+
+    with pytest.raises(SystemExit, match="no GPU found"):
+        require_gpu()
+    assert require_gpu(allow_cpu=True).platform == "cpu"
 
 
 def test_invariant_checker_catches_corruption():
@@ -247,9 +257,9 @@ def test_config_validation_errors():
 
 
 def test_compile_cache_populates_and_hits(tmp_path):
-    """enable_compilation_cache writes executables to the given dir and
-    a second process reuses them (cross-process warm start — the
-    production win measured in utils/compile_cache.py)."""
+    """With JAX_COMPILATION_CACHE_DIR set, enable_compilation_cache
+    leaves the directory to JAX, executables land there, and a second
+    process reuses them (cross-process warm start)."""
     import subprocess
     import sys as _sys
 
@@ -259,8 +269,9 @@ sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
 from bithtm_tpu.utils.compile_cache import enable_compilation_cache
-d = enable_compilation_cache({cache!r})
-assert d == {cache!r}
+d = enable_compilation_cache()
+assert d == {cache!r}, d
+assert jax.config.jax_compilation_cache_dir == {cache!r}
 import jax.numpy as jnp
 print(float(jax.jit(lambda x: (x * 3 + 1).sum())(jnp.arange(7.0))))
 """
@@ -269,7 +280,8 @@ print(float(jax.jit(lambda x: (x * 3 + 1).sum())(jnp.arange(7.0))))
     repo = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
     cache = str(tmp_path / "xla")
     code = prog.format(repo=repo, cache=cache)
-    env = dict(_os.environ, JAX_PLATFORMS="cpu")
+    env = dict(_os.environ, JAX_PLATFORMS="cpu",
+               JAX_COMPILATION_CACHE_DIR=cache)
     out1 = subprocess.run([_sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert out1.returncode == 0, out1.stderr
@@ -285,3 +297,40 @@ print(float(jax.jit(lambda x: (x * 3 + 1).sum())(jnp.arange(7.0))))
     assert set(_os.listdir(cache)) == set(entries)
     for f, m in mtimes.items():
         assert _os.path.getmtime(_os.path.join(cache, f)) == m
+
+
+def test_compile_cache_dir_follows_env_var():
+    """The variable, when set, names the cache; unset or empty, the
+    cache is the fixed in-checkout path, which git ignores."""
+    import os as _os
+    import subprocess
+
+    from bithtm_tpu.utils.compile_cache import DEFAULT_DIR, cache_dir
+
+    assert cache_dir({"JAX_COMPILATION_CACHE_DIR": "/x/y"}) == "/x/y"
+    assert cache_dir({}) == DEFAULT_DIR
+    assert cache_dir({"JAX_COMPILATION_CACHE_DIR": ""}) == DEFAULT_DIR
+    repo = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    assert DEFAULT_DIR == _os.path.join(repo, ".jax_cache")
+    ignored = subprocess.run(
+        ["git", "check-ignore", "-q", _os.path.join(DEFAULT_DIR, "f")],
+        cwd=repo, capture_output=True)
+    if ignored.returncode == 128:      # not a git checkout: read the file
+        with open(_os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+    else:
+        assert ignored.returncode == 0
+    # unset: enable_compilation_cache points JAX at the fixed path
+    import sys as _sys
+
+    env = {k: v for k, v in _os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    code = (f"import sys; sys.path.insert(0, {repo!r}); import jax; "
+            "from bithtm_tpu.utils.compile_cache import "
+            "enable_compilation_cache as e; d = e(); "
+            "print(d == jax.config.jax_compilation_cache_dir, d)")
+    out = subprocess.run([_sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["True", DEFAULT_DIR]
